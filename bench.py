@@ -1,20 +1,18 @@
-"""Headline benchmark — prints ONE JSON line.
+"""Headline benchmark: bent rays traced per second with their TEC
+integrals, on the GPU(s) JAX sees. Prints one JSON line naming the
+platform, device kind and count and the cards' power limits; refuses to
+run anywhere but a GPU.
 
-Metric: bent rays traced per second **with TEC integrals** (the
-BASELINE.json north-star: ≥1e6 on a TPU v5e-8). Measured on however many
-devices are attached; ``vs_baseline`` normalises against the per-chip share
-of the 8-chip target (1e6/8 per chip), i.e. vs_baseline ≥ 1.0 means the
-north-star rate is met at this chip count's pro-rata share.
+Configuration: config 2's physics (bent Fermat rays through a 128³ n_e
+cube) at the **solver-grade** settings of the PRECISION.md convergence
+study — leapfrog integrator with Hermite TEC quadrature, 64 steps,
+1000 km paths, 150 MHz — over 262,144 rays per device, sharded over the
+ray axis when more than one device is attached. 64 steps is not a
+reduced-accuracy shortcut: the study shows 128 steps does not improve
+endpoint or TEC error beyond the f32/interpolant floor.
 
-Configuration: config 2's physics (bent Fermat rays through a tricubic
-128³ n_e cube) at the **solver-grade** settings established by the
-PRECISION.md convergence study — leapfrog integrator with Hermite TEC
-quadrature, 64 steps, 1000 km paths, 150 MHz — over a large ray batch
-(all station×direction products of a big observation), sharded over the
-ray axis when >1 device. 64 steps is not a reduced-accuracy shortcut:
-the study shows 128 steps does not improve endpoint or TEC error beyond
-the f32/interpolant floor (PRECISION.md step-count tables); the 128-step
-rate is reported alongside in BENCH_LOCAL.md.
+``BENCH_INTERP`` selects the field model: ``zp`` (default, the
+Zwart-Powell box spline) or ``cubic`` (Catmull-Rom tricubic).
 """
 import json
 import os
@@ -24,6 +22,9 @@ import numpy as np
 
 
 def main():
+    from bench.common import setup
+    rec = setup()
+
     import jax
     import jax.numpy as jnp
 
@@ -46,23 +47,14 @@ def main():
     d = np.stack([np.sin(zen) * np.sin(az), np.sin(zen) * np.cos(az),
                   np.cos(zen)], -1).astype(np.float32)
 
-    # Step count from the convergence study vs the f64 adaptive oracle
-    # (PRECISION.md): with Hermite TEC quadrature, leapfrog@64 sits at the
-    # f32/interpolant error floor — ≤0.5 m endpoint / 1.7e-6 relative TEC
-    # on this grid at 60 MHz — and 128 steps measurably buys nothing.
+    # leapfrog@64 sits at the f32/interpolant error floor of the
+    # convergence study against the f64 adaptive oracle (PRECISION.md)
     n_steps = 64
     mesh = shard_mod.ray_mesh()
     (o_s, d_s), _ = shard_mod.shard_ray_batch(mesh, jnp.asarray(o),
                                               jnp.asarray(d))
     (m_r,) = shard_mod.replicate(mesh, m)
 
-    # round-3 production default: the Zwart-Powell box-spline field model
-    # (ONE aligned 8-row gather group per evaluation vs tricubic's 16
-    # pencils — DESIGN.md §14). Measured: 338k vs 248k rays/s/chip at the
-    # same solver-grade contract, with ~2× LOWER model error than the
-    # Catmull-Rom tricubic on band-limited fields (tests/test_boxspline.py,
-    # test_fermat.py::test_zp_leapfrog_solver_grade). BENCH_INTERP=cubic
-    # reports the historical tricubic configuration.
     interp = os.environ.get("BENCH_INTERP", "zp")
     f = jax.jit(lambda mm, oo, dd: fermat.trace_rays(
         mm, grid, oo, dd, 150e6, 1000.0, n_steps=n_steps,
@@ -77,15 +69,10 @@ def main():
     jax.block_until_ready(out)
     dt = (time.perf_counter() - t0) / reps
 
-    rays_per_sec = n_rays / dt
-    target_here = 1.0e6 * n_dev / 8.0
-    print(json.dumps({
-        "metric": "bent_rays_per_sec_with_tec",
-        "value": round(rays_per_sec, 1),
-        "unit": (f"rays/s ({n_dev} chip(s), leapfrog@{n_steps}, "
-                 f"128^3 grid, {interp})"),
-        "vs_baseline": round(rays_per_sec / target_here, 3),
-    }))
+    print(json.dumps(dict(
+        metric="bent_rays_per_sec_with_tec", value=n_rays / dt,
+        unit="rays/s", rays=n_rays, integrator=f"leapfrog@{n_steps}",
+        grid="128^3", interp=interp, **rec)))
 
 
 if __name__ == "__main__":

@@ -1,11 +1,47 @@
 """Shared helpers for the five judged-config bench harnesses
-(BASELINE.json .configs). Each configN.py prints one JSON line."""
+(BASELINE.json .configs). Each configN.py prints one JSON line, naming
+the GPU it ran on; run anywhere else, the harnesses refuse to measure."""
 from __future__ import annotations
 
 import json
+import subprocess
 import time
 
 import numpy as np
+
+NVIDIA_SMI = ["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]
+
+
+def card_lines() -> list:
+    """The cards' names and power limits as nvidia-smi reports them (one
+    line per card; the subprocess does not import JAX)."""
+    out = subprocess.run(NVIDIA_SMI, capture_output=True, text=True,
+                         check=True, timeout=60).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def device_record() -> dict:
+    """Platform, device kind and count as JAX reports them, and the
+    cards' names and power limits. Raises SystemExit off the GPU: a
+    number measured elsewhere is not a measurement of this system."""
+    import jax
+    devices = jax.devices()
+    if devices[0].platform != "gpu":
+        raise SystemExit(f"bench: needs a GPU; JAX found platform "
+                         f"{devices[0].platform!r}")
+    return dict(platform=devices[0].platform,
+                device_kind=devices[0].device_kind,
+                device_count=len(devices), cards=card_lines())
+
+
+def setup() -> dict:
+    """Call first in every harness: refuse to run off the GPU, then turn
+    on the persistent compilation cache. Returns ``device_record()``."""
+    from ionotomo_tpu.utils.compile_cache import enable_compile_cache
+    rec = device_record()
+    enable_compile_cache()
+    return rec
 
 
 def make_rays(n_ants, n_dirs, seed=0, spread_km=150.0, zen_max=0.6):
@@ -33,9 +69,9 @@ def timed(fn, *args, reps=3):
 
 
 def emit(config: str, metric: str, value: float, unit: str, **extra):
-    rec = dict(config=config, metric=metric, value=round(float(value), 4),
-               unit=unit)
+    rec = dict(config=config, metric=metric, value=float(value), unit=unit)
     rec.update(extra)
+    rec.update(device_record())
     print(json.dumps(rec))
     return rec
 
@@ -153,10 +189,9 @@ def bent_dtec_data_callable(ne_and_grad, ants, dirs, frequency_hz=150e6,
     f = jax.jit(lambda o, d: fermat.trace_rays_callable(
         ne_and_grad, o, d, frequency_hz, max_length_km, n_steps=n_steps,
         keep_path=False, method="leapfrog")[1])
-    # chunk the ray axis: each chunk is its own device program — the
-    # mode-sum field costs ~n_modes transcendental sweeps per integrator
-    # step, and a 10k-ray x 256-step x 512-mode single program would
-    # brush the environment's ~60 s execution watchdog
+    # chunk the ray axis: the mode-sum field costs ~n_modes
+    # transcendental sweeps per integrator step, and 2048-ray chunks
+    # bound each program's working set
     r = origins.shape[0]
     chunk = 2048
     pads = (-r) % chunk

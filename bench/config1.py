@@ -14,7 +14,7 @@ Two rows since round 3:
 import numpy as np
 import jax
 
-from bench.common import make_rays, timed, emit
+from bench.common import setup, make_rays, timed, emit
 from ionotomo_tpu.models import chapman
 from ionotomo_tpu.geometry import rays as rays_mod
 from ionotomo_tpu.forward import tec as tec_mod
@@ -34,6 +34,7 @@ def _analytic_truth_tec(origins, dvecs, max_length_km=1000.0, n_dense=4097):
 
 
 def main():
+    setup()
     ants, dirs = make_rays(50, 10)
     grid = chapman.grid_enclosing_rays(ants, dirs, shape=(64, 64, 64),
                                        h_min_km=0.0)

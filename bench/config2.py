@@ -6,13 +6,14 @@ Metrics: the literal config (6200 rays) and the saturated-batch headline
 import numpy as np
 import jax
 
-from bench.common import make_rays, timed, emit
+from bench.common import setup, make_rays, timed, emit
 from ionotomo_tpu.core.grids import Grid3D
 from ionotomo_tpu.geometry import fermat, rays as rays_mod
 from ionotomo_tpu.models import chapman
 
 
 def main():
+    setup()
     grid = Grid3D.from_bounds((-400, -400, 0.0), (400, 400, 1100.0),
                               (128, 128, 128))
     m = chapman.log_parametrize(chapman.chapman_field(grid))

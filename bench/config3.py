@@ -15,7 +15,7 @@ import os
 import jax
 import jax.numpy as jnp
 
-from bench.common import (make_rays, timed, emit, honest_truth,
+from bench.common import (setup, make_rays, timed, emit, honest_truth,
                           bent_dtec_data, bent_dtec_data_callable,
                           analytic_world, covered_rmse,
                           heldout_dtec_rms)
@@ -25,6 +25,7 @@ from ionotomo_tpu.inversion import solvers
 
 
 def main():
+    setup()
     ants, dirs = make_rays(50, 100)   # 5000 rays
     grid = chapman.grid_enclosing_rays(ants, dirs, shape=(128, 128, 128),
                                        h_min_km=0.0)
@@ -51,8 +52,9 @@ def main():
     # (PRECISION.md; hermite@65 loses 11% skill, so LSQR keeps 97)
     n_samples = int(os.environ.get("BENCH_N_SAMPLES", "97"))
     quadrature = os.environ.get("BENCH_QUADRATURE", "hermite")
-    # zp field model: measured 2.23 s vs 4.49 s at equal held-out skill
-    # (2358 vs 2386) on the analytic world — DESIGN.md §14
+    # zp field model: equal held-out skill to cubic on the analytic
+    # world at about half the solve time in an earlier round (DESIGN.md
+    # §14); not yet measured on the H100
     interp = os.environ.get("BENCH_INTERP", "zp")
     rb = rays_mod.sample_straight_rays(origins, dvecs,
                                        n_samples=n_samples)

@@ -6,10 +6,10 @@ solver's prior), data from the bent Fermat tracer at 2× the production
 quadrature + 1% noise, inversion with the production straight-ray
 operator and a von Kármán GP prior at deliberately-off hyperparameters.
 
-Operator quadrature: n_samples=65 (measured on-chip: on the turbulent
-128³ world the GN held-out skill is unchanged vs 129 samples, 1342 vs
-1336, at half the solve time — 4.93 s vs 9.81 s; the GP prior absorbs
-the extra quadrature error, see PRECISION.md). The parity is
+Operator quadrature: n_samples=65 (on the turbulent 128³ world the GN
+held-out skill is unchanged vs 129 samples, 1342 vs 1336, at half the
+samples; the GP prior absorbs the extra quadrature error, see
+PRECISION.md). The parity is
 resolution-dependent (~1 sample per voxel crossed): at 256³ the
 65-sample operator fails, so config 4 keeps 129.
 """
@@ -18,7 +18,7 @@ import os
 import jax
 import jax.numpy as jnp
 
-from bench.common import (make_rays, timed, emit, honest_truth,
+from bench.common import (setup, make_rays, timed, emit, honest_truth,
                           bent_dtec_data, bent_dtec_data_callable,
                           analytic_world, covered_rmse, heldout_dtec_rms)
 from ionotomo_tpu.models import chapman
@@ -28,10 +28,11 @@ from ionotomo_tpu.inversion.priors import GPCovariance
 
 
 def main():
+    setup()
     n_samples = int(os.environ.get("BENCH_N_SAMPLES", "65"))
     quadrature = os.environ.get("BENCH_QUADRATURE", "hermite")
-    # zp field model: measured 2.56 s vs 5.16 s at equal held-out skill
-    # (1628 vs 1631) on the analytic world — DESIGN.md §14
+    # zp field model: equal held-out skill to cubic (1628 vs 1631) on
+    # the analytic world — DESIGN.md §14
     interp = os.environ.get("BENCH_INTERP", "zp")
     ants, dirs = make_rays(100, 100)  # 10k rays
     grid = chapman.grid_enclosing_rays(ants, dirs, shape=(128, 128, 128),

@@ -14,7 +14,7 @@ import os
 import jax
 import jax.numpy as jnp
 
-from bench.common import (make_rays, timed, emit, honest_truth,
+from bench.common import (setup, make_rays, timed, emit, honest_truth,
                           bent_dtec_data, bent_dtec_data_callable,
                           analytic_world, covered_rmse,
                           heldout_dtec_rms)
@@ -25,6 +25,7 @@ from ionotomo_tpu.inversion.priors import GPCovariance
 
 
 def main():
+    setup()
     ants, dirs = make_rays(100, 100)  # 10k rays
     grid = chapman.grid_enclosing_rays(ants, dirs, shape=(256, 256, 256),
                                        h_min_km=0.0)
@@ -43,9 +44,9 @@ def main():
         ne_fn = None
     # physically-motivated prior family (von Kármán — what the ionosphere
     # actually does) with hyperparameters deliberately OFF the truth's
-    # (L=80 vs 120 km, sigma=0.3 vs amplitude 0.25). Measured on-chip:
-    # sqexp leaves 3x more held-out error on turbulent truth (its spectrum
-    # kills all sub-L structure); see DESIGN.md.
+    # (L=80 vs 120 km, sigma=0.3 vs amplitude 0.25). sqexp leaves 3x more
+    # held-out error on turbulent truth (its spectrum kills all sub-L
+    # structure); see DESIGN.md.
     cov = GPCovariance.create(grid, sigma=0.3, length_scale=80.0,
                               kind="von_karman")
     if ne_fn is not None:
@@ -59,23 +60,23 @@ def main():
                                       noise_frac=0.01)
     origins, dvecs = rays_mod.make_ray_batch(ants, dirs)
     # round-3 default: Hermite (gradient-augmented) operator at 65
-    # samples — 12.1 s at held-out 1282 vs the r2 Simpson@129's 22.9 s at
-    # 1359 (uniform weights kill Simpson's Nyquist comb; the endpoint
+    # samples — held-out 1282 vs the r2 Simpson@129's 1359 at half the
+    # samples (uniform weights kill Simpson's Nyquist comb; the endpoint
     # gradient correction is free — PRECISION.md round-3 study)
     n_samples = int(os.environ.get("BENCH_N_SAMPLES", "65"))
     quadrature = os.environ.get("BENCH_QUADRATURE", "hermite")
-    # cubic stays the 256³ default: the zp field model is 1.7× faster
-    # (5.66 vs 9.68 s) but loses held-out skill 1891 vs 1435 — at 3-km
-    # voxels the truth's near-Nyquist power is real signal that ZP's xy
-    # response attenuates (resolution-dependent model choice, measured —
-    # DESIGN.md §14). BENCH_INTERP=zp reports the latency frontier.
+    # cubic stays the 256³ default: the zp field model loses held-out
+    # skill 1891 vs 1435 — at 3-km voxels the truth's near-Nyquist power
+    # is real signal that ZP's xy response attenuates (resolution-
+    # dependent model choice — DESIGN.md §14). BENCH_INTERP=zp reports
+    # the latency frontier.
     interp = os.environ.get("BENCH_INTERP", "cubic")
-    # measured default (BENCH_LOCAL.md round-3 frontier): progressive
+    # default from the round-3 frontier (not yet on the H100): progressive
     # fidelity — GN iter 1 entirely on the @33 bundle, iter 2 full @65 —
-    # 9.67 s at held-out 1286 vs 12.08 s at 1281 full-fidelity (parity
-    # within run-to-run noise). BENCH_INNER_SAMPLES=0 or BENCH_PROGRESSIVE=0
-    # restores single-fidelity; BENCH_PROGRESSIVE_MIXED=1 additionally
-    # runs iter 2's solve on the coarse Jacobian (7.25 s, −3.3% skill).
+    # held-out 1286 vs 1281 full-fidelity (parity within run-to-run
+    # noise). BENCH_INNER_SAMPLES=0 or BENCH_PROGRESSIVE=0 restores
+    # single-fidelity; BENCH_PROGRESSIVE_MIXED=1 additionally runs iter
+    # 2's solve on the coarse Jacobian (−3.3% skill).
     inner = int(os.environ.get("BENCH_INNER_SAMPLES", "33"))
     rb = rays_mod.sample_straight_rays(origins, dvecs,
                                        n_samples=n_samples)
@@ -93,18 +94,15 @@ def main():
                                 noise_frac=0.0)
 
     gn_iters, cg_iters = 2, 20
-    # round-4 default (DESIGN.md §16, BENCH_LOCAL.md): warm_start —
-    # stage 2 CONTINUES stage 1's whitened Krylov solution (u_final →
-    # u0, same data) at cg2=10, measured 7.01 s at held-out 1379 vs the
-    # r3 cold default's 9.67 s at 1435 — 28% faster AND 4% more
-    # skilled (warm continuation = legitimately deeper fitting of the
-    # same data). BENCH_WARM=0 restores the r3 cold schedule.
-    # BENCH_INTERP_INNER=zp (mixed field-model Jacobian) measured
-    # 5.81 s once but is GATED OFF: the zp operator inside large
-    # 256³ CG programs is non-reproducible on this backend — same
-    # jitted solve, same inputs, different answers; see DESIGN.md §17
-    # and re-probe with python -m bench.probe_zp256 after toolchain
-    # bumps before trusting it.
+    # round-4 default (DESIGN.md §16): warm_start — stage 2 CONTINUES
+    # stage 1's whitened Krylov solution (u_final → u0, same data) at
+    # cg2=10: held-out 1379 vs the r3 cold default's 1435 with half the
+    # stage-2 iterations (warm continuation = legitimately deeper
+    # fitting of the same data). BENCH_WARM=0 restores the r3 cold
+    # schedule. BENCH_INTERP_INNER=zp (mixed field-model Jacobian) is
+    # GATED OFF: the zp operator inside large 256³ CG programs was
+    # non-reproducible on an earlier round's backend (DESIGN.md §17);
+    # ROADMAP R1 asks the question again on the GPU.
     interp_inner = os.environ.get("BENCH_INTERP_INNER", "") or None
     warm = os.environ.get("BENCH_WARM", "1") == "1"
     cg2 = int(os.environ.get("BENCH_CG2", "10" if warm else str(cg_iters)))

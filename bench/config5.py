@@ -15,18 +15,17 @@ frozen-flow evolution is an exact phase shift (turbulence.FourierModes.
 shifted) — previously the truth was advected by the filter's own
 advect_periodic, handing the filter's evolution model zero model error
 by construction (the time-domain analogue of the gridded-truth inverse
-crime measured in DESIGN.md §14). The filter executes in production form: chunked scans chained
-via advect_first/m_clim (the pipeline's checkpoint granularity), which
-also keeps each device program well inside the environment's execution
-watchdog.
+crime measured in DESIGN.md §14). The filter executes in production
+form: chunked scans chained via advect_first/m_clim (the pipeline's
+checkpoint granularity).
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 import time
 
-from bench.common import (make_rays, emit, honest_truth, covered_rmse,
-                          bent_dtec_data, heldout_dtec_rms)
+from bench.common import (setup, make_rays, emit, honest_truth,
+                          covered_rmse, bent_dtec_data, heldout_dtec_rms)
 from ionotomo_tpu.models import chapman
 from ionotomo_tpu.geometry import fermat, rays as rays_mod
 from ionotomo_tpu.inversion.kalman import kalman_filter
@@ -37,8 +36,9 @@ from ionotomo_tpu.models.turbulence import FourierModes, analytic_ne_fn
 
 def main(n_samples=65, cg_iters=10, inner_samples=33):
     import os
-    # zp field model: measured 17.4 s vs 35.0 s at better held-out skill
-    # (836 vs 843) on the analytic world — DESIGN.md §14
+    setup()
+    # zp field model: better held-out skill than cubic (836 vs 843) on
+    # the analytic world at half its rows — DESIGN.md §14
     interp = os.environ.get("BENCH_INTERP", "zp")
     world = os.environ.get("BENCH_WORLD", "analytic")
     # sweep knobs (round 4): per-step CG depth and the mixed-fidelity
@@ -48,12 +48,11 @@ def main(n_samples=65, cg_iters=10, inner_samples=33):
     if inner_env:
         inner_samples = int(inner_env) or None
     # inner_samples=33 (mixed-fidelity update, kalman_filter
-    # rays_inner_seq) is the round-5 judged default, picked from the
-    # post-fix monolithic frontier (.sweeps/r5_fixed3.log, BENCH_LOCAL
-    # round 5): cg10/inner33 = 11.21 s at held-out 861 strictly
-    # dominates cg7/inner49 (11.98/992); cg10/inner49 = 15.69/836 is
-    # the +3%-skill option (BENCH_INNER_SAMPLES=49), cg15/inner49 =
-    # 21.86/706 the best-skill point.
+    # rays_inner_seq) is the round-5 default, picked from a speed/skill
+    # frontier of an earlier round (not yet on the H100): cg10/inner33
+    # (held-out 861) dominated cg7/inner49 (992); cg10/inner49 (836) is
+    # the +3%-skill option (BENCH_INNER_SAMPLES=49), cg15/inner49 (706)
+    # the best-skill point.
     nt, chunk = 30, 6
     ants, dirs = make_rays(100, 100)  # 10k rays per step
     grid = chapman.grid_enclosing_rays(ants, dirs, shape=(128, 128, 128),

@@ -19,7 +19,6 @@ zp + cubic, hermite@33):
 Run both arms:
   python -m bench.probe_enkf_adjoint                      # hand scatter
   ROWS_VALUE_BATCH_FALLBACK=1 python -m bench.probe_enkf_adjoint  # r4
-Output lands in .sweeps/ per the measurement-closure rule (STATUS.md).
 """
 import json
 import os

@@ -1,66 +1,84 @@
-"""Mosaic vector-gather re-probe (VERDICT r2 #7) — one JSON line.
+"""Field-model gather forms on the GPU: z-pencil rows vs a direct stencil.
 
-The round-2 design sweep (DESIGN.md §1) found the Pallas fused
-gather+contract kernel blocked: ``jnp.take`` / ``take_along_axis`` inside a
-Pallas TPU kernel lowers to ``tpu.dynamic_gather``, which Mosaic rejects
-with *"Not implemented: Multiple source vregs along gather dimension"* for
-any table larger than one vreg (8 sublanes × 128 lanes) — so the 16384-row
-z-pencil table cannot be vector-gathered in VMEM, and the XLA row-gather
-formulation remains the measured optimum (~3.4 ns/row, issue-bound).
+The engine's field models fetch whole z-pencils per point (16 rows for
+cubic, 8 for zp) and contract z against a dense band. That form was
+chosen for hardware that serialises single-scalar gathers (DESIGN.md
+§1); a GPU gathers scalars natively, and the pencil reads about nz/4 times the bytes a
+stencil needs. This probe times both forms of value+gradient in the
+tracer's access pattern (2^17 points × 64 chained steps, 128³ grid):
 
-That is a point-in-time toolchain fact. **Run this probe after every
-jax/Mosaic upgrade** (`python -m bench.probe_gather` on the TPU): if it
-reports ``vector_gather_supported: true``, the ~3× pencil-traffic cut of
-the fused VMEM kernel (DESIGN.md §1 "Known costs") is back on the table
-and worth re-measuring against the row-gather baseline it also prints.
+  cubic_rows     tricubic.interp_rows_with_grad (16 pencils)
+  cubic_stencil  tricubic.interp_with_grad (64 scalar gathers)
+  zp_rows        boxspline.interp_rows_with_grad (8 pencils)
+  zp_stencil     the same box-spline weights on 8 × 3 scalar gathers
+
+Run: python -m bench.probe_gather     (one JSON line, GPU only)
 """
 import json
 import time
 
+import numpy as np
 
-def probe_mosaic_vector_gather(rows=16384, width=128):
-    """Try to compile+run a Pallas kernel that vector-gathers rows of a
-    (rows, width) VMEM-resident table via ``take_along_axis`` — the form
-    that lowers to ``tpu.dynamic_gather``. Index array has the table's
-    own shape (the sublane-gather pattern Mosaic supports for one-vreg
-    tables). Returns (ok, detail)."""
-    import jax
+
+def zp_stencil_with_grad(coef2d, grid, points):
+    """Box-spline value + physical gradient from 24 scalar gathers (the
+    8 xy rows × 3 z taps the row form reads whole pencils for)."""
     import jax.numpy as jnp
-    import numpy as np
-    try:
-        from jax.experimental import pallas as pl
-    except Exception as e:                      # pallas unavailable
-        return False, f"pallas import failed: {e}"
+    from ionotomo_tpu.core import boxspline as bs
 
-    def kernel(tab_ref, idx_ref, o_ref):
-        o_ref[...] = jnp.take_along_axis(tab_ref[...], idx_ref[...],
-                                         axis=0)
+    nz = grid.shape[2]
+    bx, by, bz, u, v, w = bs._neighborhood(grid, points)
+    dx, dy, wxy, wu, wv = bs._xy_weights(u, v, with_grad=True)
+    ri = bs._row_index(bx, by, dx, dy, grid)                  # (N, 8)
+    zi = jnp.clip(bz[:, None] + jnp.arange(-1, 2), 0, nz - 1)  # (N, 3)
+    vals = coef2d.reshape(-1)[ri[:, :, None] * nz + zi[:, None, :]]
+    wz, dwz = bs._qb_weights(w), bs._qb_dweights(w)           # (N, 3)
+    cz = jnp.einsum("nkz,nz->nk", vals, wz, precision="highest")
+    cz_d = jnp.einsum("nkz,nz->nk", vals, dwz, precision="highest")
+    value = jnp.sum(cz * wxy, -1)
+    du = jnp.stack([jnp.sum(cz * wu, -1), jnp.sum(cz * wv, -1),
+                    jnp.sum(cz_d * wxy, -1)], -1)
+    return value, du / grid.spacing[None, :]
 
+
+def start_points(n_pts):
+    import jax.numpy as jnp
     rng = np.random.default_rng(0)
-    table = jnp.asarray(rng.normal(size=(rows, width)), jnp.float32)
-    idx2d = jnp.asarray(rng.integers(0, rows, (rows, width)), jnp.int32)
-    try:
-        out = pl.pallas_call(
-            kernel,
-            out_shape=jax.ShapeDtypeStruct((rows, width), jnp.float32),
-        )(table, idx2d)
-        jax.block_until_ready(out)
-        ref = jnp.take_along_axis(table, idx2d, axis=0)
-        ok = bool(jnp.allclose(out, ref, rtol=1e-4))
-        return ok, ("compiled+ran, values " + ("match" if ok else "WRONG"))
-    except Exception as e:
-        lines = [l for l in str(e).strip().split("\n") if l.strip()]
-        return False, (lines[0][:300] if lines else type(e).__name__)
+    return jnp.asarray(
+        np.stack([rng.uniform(-300, 300, n_pts),
+                  rng.uniform(-300, 300, n_pts),
+                  rng.uniform(100, 900, n_pts)], -1), jnp.float32)
 
 
-def rowgather_baseline(nx=128, n_pts=1 << 17, n_steps=64):
-    """The DESIGN §1 baseline: chained value+grad point-evals through the
-    XLA row-gather tricubic (the tracer's exact access pattern). Returns
-    M point-evals/s — compare any future Pallas kernel against this."""
+def chained_rate(eval_vg, pts, n_steps, reps=3):
+    """M point-evals/s of ``eval_vg`` chained through a scan the way the
+    tracer chains it (each step's points depend on the last step's
+    values)."""
     import jax
     import jax.numpy as jnp
-    import numpy as np
-    from ionotomo_tpu.core import tricubic
+
+    @jax.jit
+    def chained(p0):
+        def step(p, _):
+            v, g = eval_vg(p)
+            gn = g / (jnp.linalg.norm(g, axis=-1, keepdims=True) + 1e-12)
+            return p + 0.5 * gn + 1e-6 * v[:, None], None
+        return jax.lax.scan(step, p0, None, length=n_steps)[0]
+
+    out = jax.block_until_ready(chained(pts))
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = chained(pts)
+    jax.block_until_ready(out)
+    dt = (time.perf_counter() - t0) / reps
+    return pts.shape[0] * n_steps / dt / 1e6
+
+
+def main(nx=128, n_pts=1 << 17, n_steps=64):
+    from bench.common import setup
+    rec = setup()
+
+    from ionotomo_tpu.core import boxspline, tricubic
     from ionotomo_tpu.core.grids import Grid3D
     from ionotomo_tpu.models import chapman
 
@@ -68,50 +86,26 @@ def rowgather_baseline(nx=128, n_pts=1 << 17, n_steps=64):
                               (400.0, 400.0, 1100.0), (nx, nx, nx))
     m = chapman.log_parametrize(chapman.chapman_field(grid))
     f2d = m.reshape(nx * nx, nx)
-    rng = np.random.default_rng(0)
-    pts = jnp.asarray(
-        np.stack([rng.uniform(-300, 300, n_pts),
-                  rng.uniform(-300, 300, n_pts),
-                  rng.uniform(100, 900, n_pts)], -1), jnp.float32)
-
-    @jax.jit
-    def chained(p0):
-        def step(p, _):
-            v, g = tricubic.interp_rows_with_grad(f2d, grid, p)
-            gn = g / (jnp.linalg.norm(g, axis=-1, keepdims=True) + 1e-12)
-            return p + 0.5 * gn + 1e-6 * v[:, None], None
-        p_f, _ = jax.lax.scan(step, p0, None, length=n_steps)
-        return p_f
-
-    out = chained(pts)
-    jax.block_until_ready(out)
-    t0 = time.perf_counter()
-    out = chained(pts)
-    jax.block_until_ready(out)
-    dt = time.perf_counter() - t0
-    return n_pts * n_steps / dt / 1e6
-
-
-def main():
-    import jax
-    # control: a one-vreg table (8 sublanes × 128 lanes) — Mosaic DOES
-    # support this; if the control fails the probe kernel itself is
-    # wrong for the current pallas API and needs updating, not Mosaic
-    ok_small, detail_small = probe_mosaic_vector_gather(rows=8)
-    ok, detail = probe_mosaic_vector_gather()
-    base = rowgather_baseline()
-    print(json.dumps({
-        "metric": "mosaic_vector_gather_probe",
-        "vector_gather_supported": ok,
-        "one_vreg_control_ok": ok_small,
-        "control_detail": detail_small,
-        "detail": detail,
-        "rowgather_baseline_Mpt_evals_per_sec": round(base, 2),
-        "jax_version": jax.__version__,
-        "action": ("re-measure the Pallas fused gather+contract kernel "
-                   "(DESIGN.md §1) — ~3x pencil-traffic headroom" if ok
-                   else "still blocked; XLA row-gather remains optimal"),
-    }))
+    c2d = boxspline.prefilter(m).reshape(nx * nx, nx)
+    forms = dict(
+        cubic_rows=lambda p: tricubic.interp_rows_with_grad(f2d, grid, p),
+        cubic_stencil=lambda p: tricubic.interp_with_grad(m, grid, p),
+        zp_rows=lambda p: boxspline.interp_rows_with_grad(c2d, grid, p),
+        zp_stencil=lambda p: zp_stencil_with_grad(c2d, grid, p))
+    pts = start_points(n_pts)
+    rates = {name: chained_rate(fn, pts, n_steps)
+             for name, fn in forms.items()}
+    # both forms of one model compute the same interpolant
+    same = {}
+    for k in ("cubic", "zp"):
+        v1, g1 = forms[f"{k}_rows"](pts)
+        v2, g2 = forms[f"{k}_stencil"](pts)
+        same[k] = dict(value=float(np.abs(v1 - v2).max()),
+                       grad=float(np.abs(g1 - g2).max()))
+    print(json.dumps(dict(
+        metric="field_model_point_evals_per_sec", unit="M evals/s",
+        grid=nx, points=n_pts, chained_steps=n_steps, rates=rates,
+        rows_vs_stencil_max_abs_diff=same, **rec)))
 
 
 if __name__ == "__main__":

@@ -12,8 +12,10 @@ the same linear map, measured at config-5 inner-Jacobian scale
                   (xy-neighborhood block x dense z-band)
   D segment     — sort contributions by row, segment_sum, one dense add
 
-The hypothesis under test round 4: TPU scatter cost is per-INDEX bound,
-not per-byte. Round-5 correction (DESIGN.md §18): the round-4 run used
+The hypothesis under test round 4, on that round's hardware: scatter
+cost is per-INDEX bound, not per-byte. GPU scatter-add is atomic
+and may rank the forms differently (ROADMAP S2). Round-5 correction
+(DESIGN.md §18): the round-4 run used
 PURELY RANDOM indices (despite the old comment claiming ray locality)
 and its cross-variant error check was broken (shape mismatch — B/C/D
 never actually ran to a recorded number). Production scatters are

@@ -1,9 +1,9 @@
-"""Reconciliation probe for the row-gather adjoint (round 5, DESIGN.md
-§18): why did the round-4 24-scalar hand scatter (probe_scatter form A —
-measured 3.5x SLOWER than the dense-row form B *in isolation*) make the
-config-5 inner-Jacobian VJP 3.5x FASTER (0.110 s → 0.031 s,
-.sweeps/c5_breakdown.log) while config 3's lean LSQR operator REGRESSED
-2.2 s → 6.3 s (r5 baseline sweep)?
+"""Transpose forms of the row-gather adjoint (DESIGN.md §18). In an
+earlier round's measurements the 24-scalar hand scatter (probe_scatter form
+A) was slower than the dense-row form B in isolation yet faster inside
+the config-5 inner-Jacobian VJP; this probe reconciles the two, and on
+the GPU answers ROADMAP S2 (atomic scatter-add may rank them
+differently).
 
 Three transpose formulations of the SAME linear map are timed, plus the
 mechanically derived one, at config-5 inner-Jacobian scale (N = 490k

@@ -3,14 +3,14 @@ full EpochService path (file ingest -> ray build -> online filter update
 -> Solution + JSONL write), at the reference deployment scale
 62 antennas x 10 directions on a 64^3 grid.
 
-This is the reproducible form of the round-3 ad-hoc measurement
-(BENCH_LOCAL.md "Serving latency"): epochs are fed ONE AT A TIME into
+Epochs are fed ONE AT A TIME into
 the watch directory and each ``process_available()`` call is timed —
 exactly the per-epoch cost a live 30 s calibration cadence sees.
 The first SERVE_WARMUP epochs (compile + bootstrap) are excluded from
 the steady-state statistic.
 
-Run:  python -m bench.serve_latency          (one JSON line)
+Run:  python -m bench.serve_latency          (one JSON line; needs
+      h5py, the optional ``io`` extra, for the epoch files)
 Env:  SERVE_INTERP (cubic|zp, default zp — production-trustworthy at
       <=128^3, DESIGN.md section 17), SERVE_INNER (default 33),
       SERVE_CG (default 8), SERVE_EPOCHS (default 24), SERVE_WARMUP (4),
@@ -28,7 +28,8 @@ import numpy as np
 
 
 def main():
-    from bench.common import emit
+    from bench.common import emit, setup
+    setup()
     from ionotomo_tpu.config import (EngineConfig, GridConfig, RayConfig,
                                      SolverConfig, PriorConfig,
                                      RuntimeConfig)

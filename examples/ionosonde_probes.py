@@ -22,7 +22,7 @@ Workflow:
    background covariance, the measured load-bearing choice), and
    (b) run the joint multi-layer (θ, δm) profile solve with probe rows.
 
-Run: python examples/ionosonde_probes.py    (CPU ok; TPU if attached)
+Run: python examples/ionosonde_probes.py    (CPU ok; GPU if attached)
 CLI equivalent:
     python -m ionotomo_tpu invert obs.h5 --estimate-profile \
         --apriori-model multi_chapman --vtec-anchors anchors.npz \

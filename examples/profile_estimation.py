@@ -18,7 +18,7 @@ Workflow:
 3. run the joint (θ, δm) MAP solve and compare the recovered profile
    against (a) the prior and (b) the fixed-profile anchored solve.
 
-Run: python examples/profile_estimation.py    (CPU ok; TPU if attached)
+Run: python examples/profile_estimation.py    (CPU ok; GPU if attached)
 The same flow is available end-to-end via the CLI:
     python -m ionotomo_tpu invert obs.h5 --estimate-profile \
         --vtec-anchors anchors.npz ...

@@ -13,7 +13,7 @@ The path a LOFAR user takes to switch from the reference to this engine:
    the reconstruction, dTEC predictions onto any geometry).
 
 Self-contained: synthesizes its own "observed" h5parm and VTEC values.
-Run: python examples/real_data_workflow.py   (CPU ok; TPU if attached)
+Run: python examples/real_data_workflow.py   (CPU ok; GPU if attached)
 """
 import numpy as np
 import jax.numpy as jnp

@@ -1,9 +1,11 @@
-"""Demo: tomography on a spatially-sharded grid (the >HBM growth path).
+"""Demo: tomography on a spatially-sharded grid (the growth path for
+grids larger than one card's memory).
 
 The field is sharded along x over a device mesh (2-plane halo exchange
-over ICI); bent rays trace through it and a damped least-squares TEC
-inversion runs end-to-end on the sharded field — jax transposes the
-shard_map exactly, so the stock Krylov solvers need no changes.
+between neighbouring devices); bent rays trace through it and a damped
+least-squares TEC inversion runs end-to-end on the sharded field — jax
+transposes the shard_map exactly, so the stock Krylov solvers need no
+changes.
 
 Run on any machine (virtual mesh):
   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \\

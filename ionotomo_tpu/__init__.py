@@ -1,4 +1,4 @@
-"""ionotomo_tpu — TPU-native ionospheric tomography engine.
+"""ionotomo_tpu — ionospheric tomography engine in JAX, run on GPUs.
 
 A from-scratch JAX/XLA rebuild of the capabilities of
 Joshuaalbert/IonoTomo (see SURVEY.md): bent-ray Fermat tracing through 3D

@@ -440,7 +440,7 @@ def main(argv=None):
                         "Jacobian from a coarse subsample at this many "
                         "samples (misfit stays full-fidelity); needs "
                         "(samples-1) %% (inner-samples-1) == 0. Measured "
-                        "frontier in BENCH_LOCAL.md")
+                        "frontier in DESIGN.md")
     i.add_argument("--interp-inner", default="", type=_interp_arg_opt,
                    help="mixed FIELD-MODEL fidelity: the linear solve's "
                         "Jacobian on this model, residuals on --interp "
@@ -603,6 +603,8 @@ def main(argv=None):
     n.set_defaults(fn=cmd_info)
 
     args = p.parse_args(argv)
+    from .utils.compile_cache import enable_compile_cache
+    enable_compile_cache()
     return args.fn(args)
 
 

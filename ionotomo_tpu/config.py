@@ -61,7 +61,7 @@ class RayConfig:
                               # and matvec) from a coarse subsample of the
                               # fine bundle at this many samples; misfit
                               # and residuals stay full-fidelity. Measured
-                              # frontier in BENCH_LOCAL.md (config5 @65/
+                              # frontier in DESIGN.md (config5 @65/
                               # inner@49: faster at BETTER held-out skill).
                               # Needs (n_samples-1) % (inner_samples-1)==0.
     interp: str = "cubic"   # C1 field model of the gridded log-density,
@@ -70,8 +70,8 @@ class RayConfig:
                             # "cubic" (Catmull-Rom tricubic, 16 row
                             # gathers — the r2 model) | "zp" (prefiltered
                             # Zwart-Powell box spline, 8 row gathers —
-                            # measured 1.35x tracer / 1.4x operator
-                            # throughput at ~2x LOWER model error on
+                            # 1.65x the cubic tracer's rays/s on one H100
+                            # (PERF.md) at ~2x LOWER model error on
                             # band-limited fields; core.boxspline,
                             # DESIGN.md sec. 14)
     interp_inner: str = ""  # non-empty: mixed FIELD-MODEL fidelity — the
@@ -172,7 +172,7 @@ class SolverConfig:
                               # (solvers.map_gauss_newton warm_start=) —
                               # same-data Krylov continuation, so
                               # cg_iters can drop ~2× at equal skill
-                              # (BENCH_LOCAL.md round 4). NOT offered for
+                              # (DESIGN.md §16). NOT offered for
                               # the sequential filters: warm-starting
                               # across epochs accumulates fit depth
                               # against fresh noise and measurably
@@ -189,9 +189,8 @@ class SolverConfig:
                                # advect_periodic; zero shear start) —
                                # with wind_adapt_iters > 0 the shear row
                                # is learned online
-    kalman_chunk: int = 8     # timesteps per scan: checkpoint granularity,
-                              # and keeps each device program well under the
-                              # environment's ~60 s execution watchdog
+    kalman_chunk: int = 8     # timesteps per scan: the checkpoint
+                              # granularity of the kalman/enkf runs
     posterior_samples: int = 0  # snapshot modes: >0 draws N linearised-
                                 # posterior RTO samples per timestep
                                 # (solvers.posterior_samples) and stores

@@ -1,4 +1,4 @@
-"""Physical constants and unit conventions for the TPU-native tomography engine.
+"""Physical constants and unit conventions for the tomography engine.
 
 Numerical contract (SURVEY.md §8, reconstructed from the reference's physics;
 reference mount was empty at build time — see SURVEY.md §0):

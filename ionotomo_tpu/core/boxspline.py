@@ -1,12 +1,12 @@
 """C¹ Zwart–Powell box-spline interpolation — the 8-row-gather fast path.
 
-The round-3 gather study (DESIGN.md §14) measured the TPU row-gather cost
-to be quantized in **groups of 8 sublane rows**: an (N, 8)-indexed gather
-of (1, nz) pencils runs ~1.65× faster than the tricubic kernel's (N, 16),
-while 9 rows (the tensor-product quadratic minimum, core.triquadratic)
-falls off the fast path entirely and wider rows (256/512 lanes) lose
-worse. A C¹ scheme with ≤ 8 pencils per point therefore owns the gather
-floor — and no *tensor-product* C¹ scheme can do it (3×3 = 9 is minimal).
+The round-3 gather study (DESIGN.md §14; an earlier round's hardware,
+not yet measured on the H100) found the row-gather cost quantized in groups of 8
+rows: an (N, 8)-indexed gather of (1, nz) pencils ran faster than the
+tricubic kernel's (N, 16), while 9 rows (the tensor-product quadratic
+minimum, core.triquadratic) fell off the fast path. A C¹ scheme with
+≤ 8 pencils per point therefore reads the fewest rows — and no
+*tensor-product* C¹ scheme can do it (3×3 = 9 is minimal).
 
 The **Zwart–Powell (ZP) element** — the box spline on the four directions
 {e₁, e₂, e₁+e₂, e₁−e₂} — is the classical non-tensor answer: C¹,
@@ -19,10 +19,9 @@ interpolates fields as
 
 i.e. ZP in the gathered (x, y) plane — 7 pencils + 1 zero-weight pad = one
 aligned 8-row gather group — and a quadratic B-spline along the dense
-z (lane) axis, contracted with a banded weight vector that costs nothing
-against the gather.
+z axis, contracted with a banded weight vector.
 
-Prefilter: z uses the exact tridiagonal B-spline inverse (MXU matmul,
+Prefilter: z uses the exact tridiagonal B-spline inverse (dense matmul,
 shared with core.triquadratic); the (x, y) plane uses an order-3
 **quasi-interpolation** filter q = I + (I−A) + (I−A)², A being the ZP
 integer-sample mask (centre 1/2, 4-neighbours 1/8 — derived exactly from
@@ -95,7 +94,7 @@ def _apply_a_xy(f: jax.Array) -> jax.Array:
 def prefilter(field: jax.Array, order: int = 2) -> jax.Array:
     """Field samples (nx, ny, nz) → box-spline coefficient grid.
 
-    z axis: exact quadratic-B-spline inverse (dense MXU matmul, shared
+    z axis: exact quadratic-B-spline inverse (dense matmul, shared
     with core.triquadratic). (x, y) plane: quasi-interpolation by the
     truncated Neumann series q = Σ_{j≤order} Dʲ, D = I − A (``order`` =
     number of correction terms beyond the identity; the symbol of A
@@ -178,10 +177,10 @@ _CV3 = np.ascontiguousarray(_CV[3].T)                     # (3, 8)
 def _xy_weights(u, v, with_grad: bool):
     """Translate row offsets + weights via the canonical piece.
 
-    Any per-point selection of the 4 piece tables is measured to erase
-    the 8-row gather win on TPU (a ``jnp.take`` of the tables is a
-    slow-path gather at 16.5 M evals/s; even a one-hot contraction only
-    reaches ~21 M). Instead we use the ZP element's D4 symmetry: ZP is
+    A per-point selection of the 4 piece tables erased the 8-row gather
+    win in the round-3 study (a ``jnp.take`` of the tables is a gather
+    of its own; DESIGN.md §14, not yet measured on the H100). Instead we use the ZP
+    element's D4 symmetry: ZP is
     invariant under (u,v) → (−u,−v) and under ±90° rotation (its four
     directions {e₁, e₂, e₁+e₂, e₁−e₂} map to themselves up to sign), so
     every point maps onto the canonical piece 3 (u+v>0, u−v>0) by an
@@ -193,8 +192,6 @@ def _xy_weights(u, v, with_grad: bool):
     Weights become ONE constant (6×8) monomial matmul in canonical
     coordinates; gradients pull back through Tᵀ and translates through
     T⁻¹ = Tᵀ — pure per-point sign arithmetic, no table selection.
-    Measured: 23.7 M evals/s in the tracer access pattern vs tricubic's
-    15.4 (DESIGN.md §14).
 
     Returns (dx (N,8), dy (N,8), w (N,8)[, wu (N,8), wv (N,8)]).
     """
@@ -254,15 +251,12 @@ def interp_rows_with_grad(coef2d: jax.Array, grid: Grid3D,
                           points: jax.Array):
     """Row-gather value + physical gradient from the same 8-row gather.
 
-    Contraction order matters doubly on TPU (measured, DESIGN.md §14):
-    the xy weights are contracted FIRST ("nkz,nk->nz" — 20.9 M evals/s
-    vs 16.6 for z-band-first), and any batched-band formulation
-    ("nkz,nbz->nbk") is off the table: XLA lowers it to a single-pass
-    bf16 MXU matmul (3.4e-3 value / 2.1e-2 grad error vs the f64
-    oracle — far outside the engine's f32 contract), while these
-    matvec-shaped einsums stay exact even at default precision. The
-    HIGHEST pins guard against that lowering choice ever changing; they
-    are measured free."""
+    The xy weights are contracted FIRST ("nkz,nk->nz"; the faster order
+    in the round-3 study, DESIGN.md §14, not yet measured on the H100).
+    A batched-band formulation ("nkz,nbz->nbk") would be a true matrix
+    product, which XLA may run at reduced precision (bf16 passes, or
+    TF32 on a GPU) — far outside the engine's f32 contract. The HIGHEST pins
+    keep every contraction here at full f32 whatever the lowering."""
     hi = jax.lax.Precision.HIGHEST
     bx, by, bz, u, v, w = _neighborhood(grid, points)
     dx, dy, wxy, wu, wv = _xy_weights(u, v, with_grad=True)

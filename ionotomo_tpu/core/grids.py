@@ -1,6 +1,6 @@
 """Regular 3D grid specification.
 
-TPU-first design: the grid is a static-shape, dynamic-extent object.  The
+Design: the grid is a static-shape, dynamic-extent object.  The
 voxel array itself is *not* stored here — fields are plain ``jnp`` arrays of
 shape ``grid.shape`` passed alongside the ``Grid3D`` spec, so the same spec
 can describe n_e cubes, log-density models, priors and gradients without

@@ -4,7 +4,7 @@ The reference implements the Lekien–Marsden 64-coefficient tricubic scheme
 with finite-difference derivative closure (SURVEY.md §2, `TriCubic`).  With
 central-difference derivatives that scheme is mathematically equivalent to
 **separable cubic-convolution (Catmull–Rom) interpolation** over the same
-4×4×4 neighbourhood, which is the TPU-friendly formulation used here:
+4×4×4 neighbourhood, which is the formulation used here:
 
 - per query point: 64 neighbour gathers + a separable weight outer product,
   instead of a 64×64 coefficient matrix solve per cell;
@@ -115,8 +115,8 @@ def _gather_blocks(field: jax.Array, grid: Grid3D, idx: jax.Array):
     """Gather the 4×4×4 neighbourhoods.
 
     field: (nx, ny, nz); idx: (N, 3, 4) → (N, 4, 4, 4).
-    A single flat gather keeps this one XLA gather op (TPU-friendly) rather
-    than three chained fancy-index ops.
+    A single flat gather keeps this one XLA gather op rather than three
+    chained fancy-index ops.
     """
     nx, ny, nz = grid.shape
     ix = idx[:, 0, :, None, None]                        # (N,4,1,1)
@@ -192,11 +192,13 @@ def interp_with_grad(field: jax.Array, grid: Grid3D, points: jax.Array):
 def _row_neighborhood(grid: Grid3D, points: jax.Array):
     """Row-gather setup: (x,y) pencil indices + dense z weight vectors.
 
-    TPU gathers of single scalars are slow; gathers of full minor-axis rows
-    (slice size (1, nz), nz lanes) are fast. So instead of 64 scalar
-    neighbours we fetch the 16 (x,y) z-pencils of the stencil and contract
-    the z axis with a dense, 4-banded weight vector built from iota
-    comparisons (pure VPU work, no gather).
+    Instead of 64 scalar neighbours we fetch the 16 (x,y) z-pencils of
+    the stencil (slice size (1, nz)) and contract the z axis with a
+    dense, 4-banded weight vector built from iota comparisons (no
+    gather). The form was chosen for hardware whose gathers of single
+    scalars serialise (DESIGN.md §1); on the GPU it reads about nz/4 the
+    bytes of a direct stencil, and bench/probe_gather.py times both forms (PERF.md,
+    ROADMAP S1).
     """
     idx, frac = _neighborhood(grid, points)
     nx, ny, nz = grid.shape
@@ -220,16 +222,15 @@ def _z_band(idx_z: jax.Array, w: jax.Array, nz: int):
 # --- custom adjoint for the row-gather value path (round 4, corrected
 # --- round 5) ------------------------------------------------------------
 #
-# Measured facts (bench/probe_vjp_forms.py, .sweeps/r5_baseline2.log,
-# DESIGN.md §18): at config-5 inner-Jacobian scale (490k points, 128³,
-# zp) the DENSE-ROW transpose — K full nz-deep rows ct·w_xy⊗band(w_z)
-# per point, K row indices — costs 0.030 s, identical to XLA's derived
-# transpose of the plain impl; the K×L SCALAR form (ct·w_xy·w_z at K·L
-# flat indices, which round 4 shipped on an un-re-measured ~nz/L
-# traffic theory) costs 0.108 s — 3.5× slower, because TPU scatter is
-# per-INDEX bound, not per-byte, and ray coherence does not change the
-# ranking (coherent == random within noise). The unbatched transpose is
-# therefore the dense-row form.
+# An earlier round's measurements, not yet repeated on the H100 (bench/
+# probe_vjp_forms.py, DESIGN.md §18): at config-5 inner-Jacobian scale
+# (490k points, 128³, zp) the DENSE-ROW transpose — K full nz-deep rows
+# ct·w_xy⊗band(w_z) per point, K row indices — matched XLA's derived
+# transpose of the plain impl there, while the K×L SCALAR form (ct·w_xy·
+# w_z at K·L flat indices) was 3.5× slower, because that backend's
+# scatter cost is bound per index, not per byte. GPU scatter-add is
+# atomic and may rank the forms differently (ROADMAP S2). The unbatched
+# transpose is the dense-row form.
 #
 # ``rows_value_p`` keeps each model's measured-fast forward contraction
 # order (a static param) with that hand transpose; forward.tec.
@@ -381,12 +382,12 @@ def _rows_value_transpose(ct, table, ri, wxy, zi, wz, *, xy_first):
         b, n_rows, nz = table.aval.shape
         # Batched (EnKF member) case: the K×L SCALAR contributions per
         # point, scatter-added at shared flat (row, z) indices with the
-        # member axis riding the updates. Two measured reasons this is
-        # the scalar form while the unbatched path is dense-row
-        # (DESIGN.md §18): the dense-row update tensor (B,N,K,nz) is
-        # B× the forward pencil — 16 GB at config-5 scale, an immediate
-        # OOM — and scatter cost is per-INDEX bound, so B members
-        # amortize one index stream.
+        # member axis riding the updates. Two reasons this is the scalar
+        # form while the unbatched path is dense-row (DESIGN.md §18):
+        # the dense-row update tensor (B,N,K,nz) is B× the forward
+        # pencil — 16 GB at config-5 scale — and B members amortize one
+        # index stream (the per-index scatter cost of DESIGN.md §18, not
+        # yet measured on the H100).
         contrib = (ct[..., :, None, None]
                    * (wxy[..., :, :, None] if wxy.ndim == 3
                       else wxy[:, :, None])
@@ -409,13 +410,9 @@ def _rows_value_transpose(ct, table, ri, wxy, zi, wz, *, xy_first):
     n_rows, nz = table.aval.shape
     # Unbatched: DENSE-ROW scatter (probe_scatter form B) — K full
     # nz-rows ct·w_xy ⊗ band(w_z) per point, scatter-added at the K row
-    # indices. Measured 3.5× FASTER than the K×L scalar form on this
-    # backend (0.030 s vs 0.108 s at config-5 inner-Jacobian scale,
-    # .sweeps/r5_baseline2.log): TPU scatter cost is per-index bound,
-    # so K indices of nz-deep rows beat K·L indices of scalars despite
-    # ~nz/L more scattered bytes. Round 4 shipped the scalar form on
-    # exactly the opposite theory without an end-to-end re-measurement
-    # — the 2.6× config-5 regression is reconciled in DESIGN.md §18.
+    # indices. Where scatter cost is bound per index, K indices of
+    # nz-deep rows beat K·L indices of scalars despite ~nz/L more
+    # scattered bytes (DESIGN.md §18); not yet measured on the H100.
     if wxy.ndim == 3 or wz.ndim == 3:
         # batched weights against an unbatched table (rare; not a
         # production path): every batch member scatters into the same
@@ -508,7 +505,7 @@ def rows_value(table, ri, wxy, zi, wz, xy_first: bool) -> jax.Array:
 
 def interp_rows(field2d: jax.Array, grid: Grid3D, points: jax.Array
                 ) -> jax.Array:
-    """Row-gather tricubic interpolation (TPU fast path).
+    """Row-gather tricubic interpolation (the hot-loop path).
 
     ``field2d`` is the field pre-reshaped to (nx*ny, nz) — pass it reshaped
     once outside any scan so the layout change isn't paid per step. The
@@ -528,7 +525,7 @@ def interp_rows(field2d: jax.Array, grid: Grid3D, points: jax.Array
 
 def interp_rows_with_grad(field2d: jax.Array, grid: Grid3D,
                           points: jax.Array):
-    """Row-gather value + physical gradient (TPU fast path).
+    """Row-gather value + physical gradient (the tracer's path).
 
     Same contraction structure as ``interp_with_grad`` but with the z axis
     handled by two dense banded vectors (weights and derivative weights)

@@ -15,9 +15,9 @@ see tests/test_triquadratic.py and PRECISION.md).
 The price is a global linear **prefilter**: the interpolant passes through
 the samples only if the gathered table holds B-spline *coefficients* c,
 where (c_{j-1} + 6 c_j + c_{j+1})/8 = f_j along each axis. Here the
-prefilter is applied as one dense (n, n) matmul per axis (MXU work,
-~1–2 ms at 256³, exact inverse built once per axis length in f64 on the
-host) with the linear-extrapolation boundary closure c_{-1} := 2c_0 − c_1,
+prefilter is applied as one dense (n, n) matmul per axis (exact inverse
+built once per axis length in f64 on the host) with the
+linear-extrapolation boundary closure c_{-1} := 2c_0 − c_1,
 which makes the boundary rows the identity (c_0 = f_0) and preserves
 linear fields globally. The prefilter is linear, so AD transposes it
 exactly — solver operators differentiate straight through it.
@@ -48,7 +48,7 @@ def _prefilter_matrix(n: int) -> np.ndarray:
     the identity (linear-extrapolation closure — see module docstring).
     The inverse of the diagonally-dominant tridiagonal system is dense
     with geometrically decaying off-diagonals; at n ≤ 512 the dense form
-    is a few hundred KB and turns the prefilter into MXU matmuls.
+    is a few hundred KB and turns the prefilter into dense matmuls.
     """
     if n < 3:
         return np.eye(n, dtype=np.float32)
@@ -65,8 +65,9 @@ def _prefilter_matrix(n: int) -> np.ndarray:
 def prefilter(field: jax.Array) -> jax.Array:
     """Field samples (nx, ny, nz) → B-spline coefficient grid, same shape.
 
-    Three dense per-axis matmuls (full f32 precision — the MXU default
-    bf16 passes would cost ~1e-3 relative error in the physics field).
+    Three dense per-axis matmuls (full f32 precision — reduced-precision
+    passes, bf16 or TF32 on a GPU, would cost ~1e-3 relative
+    error in the physics field).
     Linear in the field, so ``jax.vjp`` through it is exact.
     """
     nx, ny, nz = field.shape
@@ -153,7 +154,7 @@ def _z_band(idx_z: jax.Array, w: jax.Array, nz: int):
 
 def interp_rows(coef2d: jax.Array, grid: Grid3D, points: jax.Array
                 ) -> jax.Array:
-    """Row-gather triquadratic interpolation (TPU fast path).
+    """Row-gather triquadratic interpolation.
 
     ``coef2d`` is the coefficient grid pre-reshaped to (nx*ny, nz) — the
     same free layout view as the tricubic path, paid once outside scans.
@@ -172,7 +173,7 @@ def interp_rows(coef2d: jax.Array, grid: Grid3D, points: jax.Array
 
 def interp_rows_with_grad(coef2d: jax.Array, grid: Grid3D,
                           points: jax.Array):
-    """Row-gather value + physical gradient (TPU fast path).
+    """Row-gather value + physical gradient.
 
     Same contraction structure as the tricubic twin: the z axis handled by
     two dense banded vectors against the 9 gathered pencils, partial sums

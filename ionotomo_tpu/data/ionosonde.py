@@ -3,7 +3,7 @@
 Context. The reference treats the vertical profile as a fixed input (its
 ``a_priori_model`` takes Chapman parameters as constants; SURVEY.md §2
 "A-priori ionosphere model") and its real-data layer ingests only dTEC.
-The measured limits of that data mix (STATUS.md, DESIGN.md §8): dTEC is
+The measured limits of that data mix (DESIGN.md §8): dTEC is
 exactly blind to the horizontally-uniform profile, VTEC anchors pin the
 column *integral* but not its altitude shape, and multi-elevation slant
 anchors make the Chapman parameters identifiable only to ~5 km (single

@@ -47,7 +47,7 @@ def _ref_row(arr: jax.Array, i0: int) -> jax.Array:
 def _coef2d(field_m: jax.Array, grid: Grid3D, interp: str) -> jax.Array:
     """The (nx*ny, nz) row-gather table for the chosen C¹ field model:
     a free layout view for "cubic" (convolution kernel, no prefilter), the
-    prefiltered box-spline coefficient grid for "zp" (one MXU matmul + two
+    prefiltered box-spline coefficient grid for "zp" (one matmul + two
     5-point stencil passes — linear, AD-transposable, and CSE'd by XLA
     across the repeated operator applications inside one jit program)."""
     nx, ny, nz = grid.shape
@@ -72,26 +72,23 @@ def _rows_of(interp: str):
 
 def _interp_fast(field_m: jax.Array, grid: Grid3D, pts2d: jax.Array,
                  interp: str = "cubic"):
-    """Row-gather interp (the TPU fast path for both the forward gather
+    """Row-gather interp (the hot path for both the forward gather
     and — via its AD transpose — the row-aligned adjoint scatter), under
     the selected C¹ field model ("cubic": Catmull-Rom tricubic, 16 rows;
     "zp": prefiltered Zwart-Powell box spline, 8 rows — see
     core.boxspline / DESIGN.md §14).
 
-    Large point batches are processed in lax.map chunks so the gathered
-    (N, rows, nz) pencil intermediate stays bounded — a 256³ grid with
-    1.3M quadrature points would otherwise materialise ~21 GB and
-    exhaust HBM (config 4 scale). Chunked scan also bounds the VJP's
-    memory, which is what the Krylov solvers differentiate through —
-    but chunking is not free: the lax.map VJP pays a separate scatter
-    kernel + backward-scan step per chunk (measured 2.4× the monolithic
-    VJP at 4 chunks, DESIGN.md §18/§20). The measured two-regime design
-    (round 5, DESIGN.md §20): go MONOLITHIC whenever the whole pencil
-    fits ``IONO_TEC_MONO_MB`` (default 4096 MiB — config 3: 2.31→1.99 s,
-    config 5: 18.2→15.7 s at identical held-out); when it cannot fit
-    (256³-class), chunk at ``IONO_TEC_CHUNK_MB`` (default 512 MiB —
-    bigger 4-GiB chunks measured SLOWER end-to-end: config 4
-    7.07→9.40 s at 5×4 GiB vs 40×512 MiB).
+    The gathered (N, rows, nz) pencil is bounded by two budgets, read at
+    trace time. The whole batch runs MONOLITHIC when its pencil fits
+    ``IONO_TEC_MONO_MB`` (default 24576 MiB); otherwise it runs as a
+    ``lax.map`` over chunks of ``IONO_TEC_CHUNK_MB`` (default 512 MiB),
+    which also bounds the VJP's memory — what the Krylov solvers
+    differentiate through. Set on one H100 (80 GB, 700 W; PERF.md) from
+    the 256³ MAP solve of 10k rays × 129 cubic samples, a 21 GB pencil:
+    monolithic 1.88 s at 45.6 GB peak, chunked at 512 MiB 2.11–2.15 s,
+    at 2 GiB 2.09 s. The budget counts one field: under a vmap over the
+    field (the EnKF member axis) the pencil is that many times larger,
+    so 256³ ensembles want a smaller ``IONO_TEC_MONO_MB``.
     """
     nz = grid.shape[2]
     mod = _rows_of(interp)
@@ -99,7 +96,7 @@ def _interp_fast(field_m: jax.Array, grid: Grid3D, pts2d: jax.Array,
     n_rows = 16 if interp == "cubic" else 8
     n = pts2d.shape[0]
     per_pt = n_rows * nz * 4  # pencil bytes per point
-    mono = int(os.environ.get("IONO_TEC_MONO_MB", "4096")) * 1024 * 1024
+    mono = int(os.environ.get("IONO_TEC_MONO_MB", "24576")) * 1024 * 1024
     budget = int(os.environ.get("IONO_TEC_CHUNK_MB", "512")) * 1024 * 1024
     chunk = max(8192, budget // per_pt)
     if n <= chunk or n * per_pt <= mono:
@@ -381,8 +378,9 @@ def tec_linear_adjoint(y: jax.Array, grid: Grid3D, rays: RayBundle,
     """Exact transpose of ``tec_linear``: data-space (R,) → voxel grid.
 
     "cubic": scatter-adds y_r · w_n · ds_r · 1e3 / TEC_SCALE through the
-    tricubic stencil weights — segment-sum-style scatter (TPU
-    deterministic; SURVEY.md §5.2) via jnp .at[].add on flat indices.
+    tricubic stencil weights — segment-sum-style scatter (SURVEY.md
+    §5.2) via jnp .at[].add on flat indices; on the GPU that scatter is
+    atomic, so its summation order varies from run to run.
     "zp": jax.linear_transpose of ``tec_linear`` — the prefilter is
     linear, so XLA derives the exact coefficient-space scatter plus the
     prefilter transpose automatically (a hand scatter would need the

@@ -11,13 +11,13 @@ dx/ds = p/|p|, dp/ds = ∇n(x). The refractive index is the cold-plasma
 Appleton–Hartree form n = sqrt(1 − KAPPA·n_e/f²), n_e = K_NE·exp(m(x)) from
 the tricubic-interpolated log-density field.
 
-TPU-native design (vs the reference's per-ray scipy.integrate.odeint, its
+Accelerator design (vs the reference's per-ray scipy.integrate.odeint, its
 biggest bottleneck): a **fixed-step RK4 under lax.scan, batched over the
 whole ray bundle** — the RHS operates on (R,3) arrays directly so every
 integrator stage is one fused gather+arithmetic program over all rays; the
 TEC path integral rides along as extra ODE state (dτ/ds = n_e), integrated
 at the same 4th order. No Python in the loop, no host round-trips; state
-(x, p, τ) stays in HBM/VMEM across the scan.
+(x, p, τ) stays on the device across the scan.
 
 Step-count contract (SURVEY.md §7 "Bent-ray step control"): the
 PRECISION.md convergence study against the adaptive f64 oracle fixes
@@ -95,10 +95,9 @@ def field_evaluator(field_m: jax.Array, grid: Grid3D,
     - ``cubic``: Catmull-Rom tricubic, 16 row gathers/eval — the
       historical model, the most accurate *convolution* kernel here.
     - ``zp``: Zwart-Powell box spline ⊗ quadratic-z, **8 row gathers** —
-      one aligned gather group, measured 1.35× the tracer throughput
-      (330k vs 245k rays/s/chip at leapfrog@64, 128³) AND ~2× lower
-      value/gradient model error than ``cubic`` on band-limited fields
-      (core.boxspline; round-3 study, DESIGN.md §14).
+      half of cubic's rows, AND ~2× lower value/gradient model error
+      than ``cubic`` on band-limited fields (core.boxspline; round-3
+      study, DESIGN.md §14).
     - ``quadratic``: tensor quadratic B-spline, 9 row gathers — the
       tensor-product C¹ minimum; accuracy of ``zp``, speed of ``cubic``
       (9 rows falls off the aligned-gather fast path). Kept for study
@@ -148,9 +147,9 @@ def trace_rays(field_m: jax.Array, grid: Grid3D, origins: jax.Array,
     - ``leapfrog``: velocity-Verlet kick-drift with the field gradient
       carried between steps — **one** field evaluation/step (4× fewer
       gathers than rk4), 2nd order in the path, **Hermite (4th-order)
-      TEC** from the same gather. Since the gather is the
-      arithmetic-intensity bottleneck on TPU, leapfrog dominates rk4 in
-      accuracy-per-second; leapfrog@64 is solver-grade (PRECISION.md) and
+      TEC** from the same gather. Since the gather dominates the cost
+      of a step, leapfrog dominates rk4 in accuracy-per-second;
+      leapfrog@64 is solver-grade (PRECISION.md) and
       the benchmark/production configuration (see bench.py).
 
     ``interp`` selects the C¹ field model (see ``field_evaluator``):
@@ -355,7 +354,7 @@ def trace_rays_stochastic(field_m: jax.Array, grid: Grid3D,
     turbulence this leaves tec_std ≪ |tec| (test_fermat.py), so the
     function degrades gracefully to the deterministic trace. Cost:
     n_paths × the deterministic trace, all paths one vmapped program
-    (gathers stay batched on the MXU-adjacent path). The per-path
+    (gathers stay batched). The per-path
     randomness is keyed only by ``key`` — chunked/resumed callers get
     identical beams from identical keys.
     """

@@ -3,7 +3,7 @@
 Differential TEC is blind to any field change that adds the same TEC to
 every ray of an antenna — in practice the common-mode vertical profile
 (the dominant term of the reconstruction's model-space error; see
-BENCH_LOCAL.md config 4). Real calibration pipelines close this gap with
+DESIGN.md config 4). Real calibration pipelines close this gap with
 external **absolute** TEC: GNSS-derived vertical-TEC maps over the array
 (the standard products the reference's LOFAR context consumes). This
 module represents such data as extra absolute-TEC rows appended to the

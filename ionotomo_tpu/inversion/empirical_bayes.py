@@ -22,14 +22,14 @@ quadratures on the Ritz values,
     logdet S ≈ (n/m) Σ_i Σ_j w_ij · log(γ θ_ij + σ_n²)       (probes z_i)
     rᵀS⁻¹r  ≈ ‖r‖²  Σ_j w_j  / (γ θ_j  + σ_n²)              (seed r/‖r‖)
 
-TPU-native structure: S is an **affine family in (γ, ρ²)** over a fixed
+Structure: S is an **affine family in (γ, ρ²)** over a fixed
 A (ρ rescales the noise), so ONE spectral factorisation of A prices the
 *entire* (γ, ρ) plane for free; only the outer loop over candidate L
 re-factorises (the covariance spectrum is a pytree data field, so every
 L reuses one compiled program). Two factorisation regimes:
 
 - **dense** (n ≤ ~4k — pipeline bootstrap scale): A assembled by n
-  chunked batched matvecs (MXU-heavy, one XLA program) + one (n, n)
+  chunked batched matvecs (one XLA program) + one (n, n)
   eigh → the family is EXACT. Cost ≈ n forward/adjoint pairs.
 - **slq** (large n): stochastic Lanczos quadrature (Ubaru–Chen–Saad
   2017) as below — (n_probes+1)·k forward/adjoint pairs ≈ one MAP
@@ -150,8 +150,8 @@ def log_marginal_family(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
         A, r, logdet_noise = _assemble_dense(
             grid, rays, d_obs, noise_std, m_prior, cov_unit,
             num_directions, i0, quadrature, interp)
-        # the (n, n) eigh runs on host LAPACK in true f64: the TPU is
-        # f32-only without x64, and the ρ-sensitive small-eigenvalue
+        # the (n, n) eigh runs on host LAPACK in true f64: the device
+        # path is f32 without x64, and the ρ-sensitive small-eigenvalue
         # tail of the ~10-decade spectrum needs better than f32 here
         # (measured: f32 eigh leaves ~1% log-evidence error in the
         # small-ρ corners). Assembly — the expensive part — stays one

@@ -4,7 +4,7 @@ Model (SURVEY.md §8): state = log-density grid m_t; transition = frozen-flow
 advection by the bulk wind (n_e(x, t+Δt) = n_e(x − vΔt, t)) plus process
 noise; measurement = the dTEC ray operator.
 
-TPU-native filter design: the full voxel covariance (10⁶×10⁶ for 128³) is
+Filter design: the full voxel covariance (10⁶×10⁶ for 128³) is
 never formed. Instead the filter runs in the **stationary-covariance
 approximation** — the reference's own operating regime, where the prior
 covariance C_m (GP kernel, applied spectrally) is advected-invariant
@@ -266,9 +266,9 @@ def kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq, noise_std,
     ``rays_seq`` (the coarse rule's systematic quadrature bias never
     enters them); the update's Jacobian — rhs and matvec both, which is
     what keeps the step a contraction — is the coarse operator's.
-    Measured (config 5, BENCH_LOCAL.md) vs the full-fidelity filter:
-    ~1.55× faster (42.0 → 27.1 s) at ~1.5% held-out cost, where running
-    *everything* coarse (the residuals too) loses ~4%.
+    Measured on config 5 in an earlier round (held-out costs do not
+    depend on the device) vs the full-fidelity filter: ~1.5% held-out cost, where
+    running *everything* coarse (the residuals too) loses ~4%.
 
     ``innov_stats`` (with ``stats_key``): also return the per-step
     noise-scale-squared MLE ``innov_q`` (see ``_innov_noise_scale_sq``)
@@ -361,7 +361,7 @@ def kalman_filter(grid: Grid3D, rays_seq: RayBundle, d_obs_seq, noise_std,
             q = jnp.float32(0.0)
         if mixed:
             # mixed-fidelity (inexact Gauss-Newton; measured design,
-            # BENCH_LOCAL.md config 5): the data misfit r is evaluated
+            # DESIGN.md config 5): the data misfit r is evaluated
             # with the full-fidelity forward — the coarse rule's
             # systematic quadrature bias never enters it — while the
             # Jacobian of the whole linear solve (rhs AND matvec) is the
@@ -856,7 +856,8 @@ def member_parallel_enkf(mesh, grid: Grid3D, rays_seq: RayBundle,
     not per-ray). Cross-chip traffic per step: the grid-sized pmean of
     the ensemble mean/std (+ one more for inflation centering) and the
     scalar reductions of the shared wind refinement — a few all-reduces
-    riding ICI, vs the ~2·cg_iters per-member ones ray sharding pays.
+    over the interconnect, vs the ~2·cg_iters per-member ones ray
+    sharding pays.
 
     Randomness: every device draws the globally-shaped key/noise arrays
     and slices its local rows, so the sharded filter consumes exactly

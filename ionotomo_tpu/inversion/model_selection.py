@@ -13,7 +13,7 @@ solves:
 S·y is one covariance-preconditioned CG solve (identical machinery to
 solvers.map_gauss_newton); tr S is estimated with Hutchinson Rademacher
 probes — so a candidate costs (1 + n_probes) solves, all inside one jit.
-The measured BENCH_LOCAL.md prior-family study (sqexp leaves 2× the
+The measured DESIGN.md prior-family study (sqexp leaves 2× the
 held-out error of von Kármán on turbulent skies) is exactly the kind of
 mistake this automates away.
 """

@@ -76,7 +76,7 @@ class OnlineKalman:
         # >0: mixed-fidelity per-epoch updates — the linear solve's
         # Jacobian from a coarse subsample of each epoch's bundle, misfit
         # full-fidelity (kalman_filter rays_inner_seq; measured frontier
-        # in BENCH_LOCAL.md — the streaming path is the latency-sensitive
+        # in DESIGN.md — the streaming path is the latency-sensitive
         # beneficiary)
         self.inner_samples = int(inner_samples)
         # >0: online wind tracking — this many innovation-GN refinements

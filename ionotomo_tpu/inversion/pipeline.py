@@ -728,7 +728,7 @@ class InversionPipeline:
             raise ValueError(
                 "solver.estimate_profile needs absolute-TEC anchors "
                 "(run(anchors=...)): the profile shape is measured to be "
-                "unobservable from dTEC alone (STATUS.md null-result "
+                "unobservable from dTEC alone (DESIGN.md §8 null-result "
                 "study); provide multi-elevation slant anchors "
                 "(inversion.anchors.slant_bundle)")
         if probes is not None:
@@ -995,8 +995,8 @@ class InversionPipeline:
         return np.zeros(3)
 
     def _run_kalman(self, start_t: int = 0, state=None) -> Solution:
-        """Config-5 solver, chunked for fault tolerance and the device
-        watchdog: the Nt-step filter runs as ceil(Nt/kalman_chunk) scans,
+        """Config-5 solver, chunked for fault tolerance: the Nt-step
+        filter runs as ceil(Nt/kalman_chunk) scans,
         checkpointing the filtered sequence (+ wind) after each chunk.
         ``advect_first``/``m_clim`` make the chunked filter bit-identical
         to the single-scan filter (tests/test_kalman.py), and resume

@@ -3,7 +3,7 @@
 Reference parity (SURVEY.md §3.5 "Covariance / GP application"): the model
 covariance C_m with a stationary kernel (σ_m, correlation length L), applied
 spectrally in O(N log N) on the grid, plus its inverse contraction for the
-MAP objective. TPU-native: jnp.fft 3D transforms, spectrum built once by
+MAP objective. On the device: jnp.fft 3D transforms, spectrum built once by
 circulant embedding of the kernel on the (padded-by-construction) grid.
 """
 from __future__ import annotations

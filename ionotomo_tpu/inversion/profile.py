@@ -1,7 +1,7 @@
 """Parametric vertical-profile estimation — closing dTEC's profile null
 space with physics, not just anchoring (VERDICT r2 "next round" #3).
 
-Measured background (STATUS.md / DESIGN.md §8): dTEC is exactly blind to
+Measured background (DESIGN.md §8): dTEC is exactly blind to
 the horizontally-uniform vertical profile; VTEC anchors pin the *column*
 (the integral) but not its altitude *shape* — even multi-frequency bent
 dTEC leaves the horizontally-averaged log-profile rms unmoved to 4 digits.
@@ -233,7 +233,7 @@ def map_gauss_newton_profile(grid: Grid3D, rays: RayBundle, d_obs,
 def log_profile_rms(m, m_true, grid: Grid3D, floor: float = -4.0
                     ) -> jax.Array:
     """Horizontally-averaged log-profile rms error — the metric of the
-    round-2 null-result study (STATUS.md): rms over z of the difference
+    round-2 null-result study (DESIGN.md §8): rms over z of the difference
     of horizontal means, restricted to altitudes where the true profile
     is populated (mean log-density above ``floor`` ≈ n_e > 2e9 m⁻³ at
     the default) — the exponential bottomside/vacuum tails are zero

@@ -232,7 +232,7 @@ def map_gauss_newton(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
     ~2× cheaper per CG iteration but its xy near-Nyquist attenuation
     loses measured skill at 3-km voxels when used as the FULL model
     (DESIGN.md §14) — as the inner Jacobian only, that bias never enters
-    the residuals (measured, BENCH_LOCAL.md round 4). Composes with
+    the residuals (measured, DESIGN.md §16). Composes with
     ``rays_inner`` (coarse samples AND coarse model).
 
     ``warm_start``: carry the whitened CG solution u across Gauss-Newton
@@ -243,7 +243,7 @@ def map_gauss_newton(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
     k's solution (optimally rescaled, linalg.cg ``scale_x0``) continues
     the SAME solve instead of re-discovering the dominant data
     directions from zero, so ``cg_iters`` can drop at equal skill
-    (measured: BENCH_LOCAL.md round 4). On the same data this
+    (measured: DESIGN.md §16). On the same data this
     accumulation converges toward the exact MAP solution — legitimate
     deeper fitting, in contrast to the sequential filters where
     warm-starting across steps accumulates depth against FRESH noise
@@ -269,7 +269,7 @@ def map_gauss_newton(grid: Grid3D, rays: RayBundle, d_obs, noise_std,
                                                probes=probes, interp=interp)
         if rays_inner is not None or inner_model != interp:
             # mixed-fidelity (inexact Gauss-Newton; see kalman_filter,
-            # measured on config 5, BENCH_LOCAL.md): data misfit and
+            # measured on config 5, DESIGN.md): data misfit and
             # residuals at full fidelity — the coarse rule's systematic
             # quadrature bias never enters them — with the linear
             # solve's Jacobian (rhs AND matvec; both sides or the step

@@ -169,7 +169,7 @@ def background_ne_fn(n_peak=1.0e12, h_peak_km=350.0, scale_km=80.0,
 
     Returns ``fn(points (R, 3) ENU km) -> (n_e (R,) [m⁻³], ∇n_e (R, 3)
     [m⁻³/km])`` with the gradient obtained by jax autodiff of the analytic
-    profile — exact, gather-free, pure VPU work. Supports the single
+    profile — exact, gather-free, elementwise. Supports the single
     Chapman layer (default), a multi-Chapman stack (``layers`` as in
     ``multi_chapman_ne``), scalar solar-zenith modulation, and the
     curved-Earth altitude model (``altitude_field`` geometry evaluated
@@ -230,8 +230,8 @@ def log_parametrize(n_e):
 
     The clip is applied to the *ratio*: clipping n_e before the division
     (the obvious form) fails in f32 — a clipped 1e-30 becomes 1e-41
-    after /K_NE, which is subnormal and flushed to zero on TPU and XLA
-    CPU alike, so deep Chapman tails (e.g. 25 km below a 420 km peak)
+    after /K_NE, which is subnormal and flushed to zero by XLA's CPU
+    and accelerator backends alike, so deep Chapman tails (e.g. 25 km below a 420 km peak)
     came out -inf and NaN-poisoned every interpolation touching the
     bottom grid nodes. The floor is ``M_FLOOR`` = log(1e-37) ≈ -85.2."""
     return jnp.log(jnp.maximum(n_e / constants.K_NE, 1e-37))

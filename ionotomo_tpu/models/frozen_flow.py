@@ -1,7 +1,7 @@
 """Frozen-flow advection (Taylor's hypothesis) — device-side spectral shift.
 
 Reference capability (SURVEY.md §8): ``n_e(x, t+Δt) = n_e(x − v·Δt, t)`` +
-process noise. TPU-native form: a sub-voxel-exact translation as a Fourier
+process noise. Device form: a sub-voxel-exact translation as a Fourier
 phase ramp (periodic boundary) — one FFT pair, no gather; this is both the
 simulation's time evolution and the Kalman filter's transition operator.
 

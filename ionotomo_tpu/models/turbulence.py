@@ -2,8 +2,8 @@
 
 Reference capability (SURVEY.md §2 "Turbulence / frozen-flow simulation"):
 synthetic turbulent log-n_e perturbations with a von Kármán/Kolmogorov-like
-spectrum, realized by filtering white noise in Fourier space. TPU-native
-form: one forward/inverse 3D FFT pair under jit; realizations are
+spectrum, realized by filtering white noise in Fourier space. Device form:
+one forward/inverse 3D FFT pair under jit; realizations are
 embarrassingly parallel via vmap over split PRNG keys (SURVEY.md §2.1 P3).
 """
 from __future__ import annotations

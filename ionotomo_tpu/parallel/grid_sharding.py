@@ -2,9 +2,9 @@
 
 SURVEY.md §5.7(b): the engine's default layout replicates the voxel grid
 (256³ f32 = 64 MiB) and shards rays — sufficient for every judged config.
-This module is the designed-for growth path for grids that exceed a chip's
-HBM: the field is sharded along its leading (x) axis over a device mesh,
-each shard exchanges **2-plane halos** with its neighbours over ICI
+This module is the designed-for growth path for grids that exceed one
+card's memory: the field is sharded along its leading (x) axis over a
+device mesh, each shard exchanges **2-plane halos** with its neighbours
 (`lax.ppermute`), interpolates the query points whose 4-point x-stencil it
 owns, and the per-point partial results are `psum`-combined into a
 replicated answer.

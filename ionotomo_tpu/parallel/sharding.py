@@ -4,8 +4,9 @@ Design (SURVEY.md §2.1–2.2, §5.7–5.8): the reference's dask fan-out over
 ray chunks becomes single-program SPMD — a 1-D mesh over the ray axis, the
 voxel grid **replicated** (256³ f32 = 64 MiB fits every chip), rays sharded.
 The only cross-chip traffic in the inner loop is the psum of adjoint/
-gradient contributions and CG inner products, riding ICI. Kept deliberately
-thin: these helpers build meshes/shardings; solver code stays sharding-
+gradient contributions and CG inner products (NVLink between the cards
+of one host). Kept deliberately thin: these helpers build
+meshes/shardings; solver code stays sharding-
 agnostic because XLA's SPMD partitioner propagates the annotations through
 jit (gather stays local to the replicated grid; the vjp scatter-add
 all-reduces automatically).
@@ -18,7 +19,6 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 RAY_AXIS = "rays"
-SLICE_AXIS = "slice"
 
 
 def ray_mesh(devices=None) -> Mesh:
@@ -27,38 +27,8 @@ def ray_mesh(devices=None) -> Mesh:
     return jax.make_mesh((len(devices),), (RAY_AXIS,), devices=devices)
 
 
-def multislice_ray_mesh(n_slices: int, chips_per_slice: int = None,
-                        devices=None) -> Mesh:
-    """2-level ('slice', 'rays') mesh for multi-slice deployments: chips
-    within a slice talk over ICI, slices over DCN. Rays shard over the
-    flattened slice×chip product (``ray_sharding`` handles both mesh
-    kinds), so the device order must put each slice's chips contiguously
-    — jax's default device order does on real multi-slice topologies.
-    The only DCN traffic in a solve is the grid-sized psum of adjoint
-    contributions and the scalar CG reductions, once per CG iteration
-    (64 MiB per 256³ f32 grid); XLA's hierarchical collectives reduce
-    within slices over ICI first.
-    """
-    devices = list(devices if devices is not None else jax.devices())
-    if chips_per_slice is None:
-        if len(devices) % n_slices:
-            raise ValueError(
-                f"{len(devices)} devices do not divide into {n_slices} "
-                "slices; pass chips_per_slice (and an explicit device "
-                "subset) to use fewer devices deliberately")
-        chips_per_slice = len(devices) // n_slices
-    n = n_slices * chips_per_slice
-    if n > len(devices):
-        raise ValueError(f"need {n} devices, have {len(devices)}")
-    return jax.make_mesh((n_slices, chips_per_slice),
-                         (SLICE_AXIS, RAY_AXIS), devices=devices[:n])
-
-
 def ray_sharding(mesh: Mesh) -> NamedSharding:
-    """Shard the leading (ray) axis — over the slice×chip product when the
-    mesh is 2-level (multislice_ray_mesh)."""
-    if SLICE_AXIS in mesh.axis_names:
-        return NamedSharding(mesh, P((SLICE_AXIS, RAY_AXIS)))
+    """Shard the leading (ray) axis."""
     return NamedSharding(mesh, P(RAY_AXIS))
 
 

@@ -5,8 +5,8 @@ Composable stationary kernels (SE, rational quadratic, Matérn family,
 sums/products), exact GP regression via on-device Cholesky, marginal-
 likelihood hyperparameter optimisation with jax autodiff + BFGS, and
 batched (vmapped) solves — used for screen-level fits over (antenna,
-direction) coordinates, where N is small and dense linear algebra on the
-MXU is the right tool (contrast the grid-scale FFT covariance operator in
+direction) coordinates, where N is small and dense linear algebra is the
+right tool (contrast the grid-scale FFT covariance operator in
 inversion.priors).
 """
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """Parametric profile estimation (inversion/profile.py): recovering the
 Chapman (N_peak, h_peak, H) from multi-elevation slant absolute TEC +
 dTEC — the capability that closes dTEC's measured profile null space
-(VERDICT r2 #3; STATUS.md null-result study)."""
+(VERDICT r2 #3; DESIGN.md §8 null-result study)."""
 import numpy as np
 import jax
 import jax.numpy as jnp
